@@ -1,9 +1,10 @@
-"""TPU-native wavefront path tracer (JAX/XLA/Pallas).
+"""Wavefront path tracer in JAX for the GPU.
 
-A from-scratch re-design of the capabilities of vismaychuriwala/CUDA-Path-Tracer
-for TPU: fixed-size masked wavefront inside jit, Pallas kernels for the hot
-ops, shard_map data parallelism over the ray pool, and a differentiable render
-loop (gradients w.r.t. materials and camera through reparameterized sampling).
+A from-scratch re-design of the capabilities of vismaychuriwala/CUDA-Path-Tracer:
+fixed-size masked wavefront inside jit, a Pallas (Triton) kernel for the BVH
+walk, shard_map data parallelism over the ray pool, and a differentiable
+render loop (gradients w.r.t. materials and camera through reparameterized
+sampling).
 """
 
 from .scene.loader import load_scene

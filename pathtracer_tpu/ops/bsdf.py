@@ -10,13 +10,13 @@ uber shading kernel shadeRealMaterial (src/pathtrace.cu:524-571). Termination:
       pathtrace.cu:574-589, SURVEY.md §3.2c) — opt in via depth_quirk.
 
 All branches are computed for every lane and combined with selects — the
-TPU-idiomatic form of the reference's warp-divergent uber-kernel. Sampling is
+data-parallel form of the reference's warp-divergent uber-kernel. Sampling is
 reparameterized on explicit uniforms so jax.grad flows through the continuous
 paths (albedo/specular/emittance/IOR) with branch decisions held fixed.
 
 Material parameters arrive as per-lane gathers; for the small material tables
-typical of scenes (M <= ~32) the gather is unrolled into a select chain, which
-is faster than a cross-lane gather on TPU.
+typical of scenes (M <= ~32) the gather is unrolled into a select chain that
+XLA fuses into the shading pass.
 """
 from __future__ import annotations
 
@@ -110,8 +110,8 @@ def gather_material(materials: MaterialArrays, mat_id: jnp.ndarray
     """Per-lane material parameter fetch (the reference reads
     materials[intersection.materialId], pathtrace.cu:550).
 
-    For small tables this unrolls to a select chain (TPU-friendly: pure VPU
-    selects, no cross-lane gather); larger tables fall back to jnp gathers.
+    For small tables this unrolls to a select chain (pure elementwise
+    selects, no gather); larger tables fall back to jnp gathers.
     """
     m = materials.count
     if m <= MATERIAL_SELECT_MAX:
@@ -182,10 +182,10 @@ def scatter_ray(direction: Vec3, hit_point: Vec3, normal: Vec3,
 
     `any_glossy` / `any_refractive` are TRACE-TIME flags (from the scene's
     material table, RenderSettings): a branch no material can take is not
-    computed at all — the TPU analogue of the reference's warp-coherent
+    computed at all — the analogue of the reference's warp-coherent
     uber-kernel being cheap when a scene uses one BSDF. On all-diffuse scenes
     this removes the Fresnel/refract/reflect chains (2 extra normalizes,
-    a sqrt, and ~60 VPU ops per lane per bounce).
+    a sqrt, and ~60 elementwise ops per lane per bounce).
     """
     base_origin = hit_point + normal * SCATTER_EPS  # interactions.cu:62
 

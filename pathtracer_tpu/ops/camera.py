@@ -18,7 +18,7 @@ def pick_tile(width: int, height: int):
 
     Lane order is tile-major when possible: a traversal-kernel ray block then
     covers a compact pixel footprint instead of a full-width scanline strip,
-    which is what keeps secondary-bounce origins coherent (ops/bvh_pallas.py).
+    which keeps the rays of one kernel program coherent (ops/bvh_walk.py).
     """
     for t in (32, 16, 8):
         if width % t == 0 and height % t == 0:

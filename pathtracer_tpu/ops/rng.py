@@ -2,15 +2,14 @@
 
 The reference seeds a thrust engine per (iter, thread index, depth) via a hash
 (reference src/pathtrace.cu:69-74, src/intersections.h:12-21) and consumes it
-sequentially. Two TPU-native equivalents:
+sequentially. Two stateless equivalents:
 
   fast (default)   A PCG-style integer hash of (seed, iteration, depth, lane,
-                   draw) — raw uint32 VPU ops, ~10 int ops per word. This is
-                   the same construction as the reference's utilhash-seeded
-                   thrust::default_random_engine (a cheap LCG), with far
-                   better mixing. Measured: threefry cost 0.62 ms per bounce
-                   of a 640k pool (the largest single stage); the hash is
-                   ~free.
+                   draw) — raw uint32 elementwise ops, ~10 int ops per word.
+                   This is the same construction as the reference's
+                   utilhash-seeded thrust::default_random_engine (a cheap
+                   LCG), with far better mixing, and much cheaper than
+                   threefry's rounds.
 
   threefry         jax.random keys (cryptographic-grade counter RNG). Kept
                    for A/B validation of the fast hash and for users who want
@@ -33,7 +32,7 @@ GOLDEN = jnp.uint32(0x9E3779B9)
 # ---------------------------------------------------------------------------
 
 def _pcg(x: jnp.ndarray) -> jnp.ndarray:
-    """One round of PCG-RXS-M-XS on uint32 — 8 integer VPU ops."""
+    """One round of PCG-RXS-M-XS on uint32 — 8 integer ops."""
     x = x * jnp.uint32(747796405) + jnp.uint32(2891336453)
     x = ((x >> ((x >> jnp.uint32(28)) + jnp.uint32(4))) ^ x) * jnp.uint32(277803737)
     return (x >> jnp.uint32(22)) ^ x

@@ -7,20 +7,21 @@ mesh spanning every host's chips, per-host construction of exactly the array
 shards that host owns, and host-side image assembly via a process allgather.
 
 Design (the ray-pool axis is the only big axis — SURVEY.md §5.7):
-  - one 1-D mesh over ALL chips of every host; rays/pixels sharded, scene
-    replicated. Tracing needs zero cross-chip traffic, so ICI/DCN carry only
-    gradient psums (differentiable path) and the final image fetch.
+  - one 1-D mesh over ALL devices of every host; rays/pixels sharded, scene
+    replicated. Tracing needs zero cross-device traffic, so the interconnect
+    carries only gradient psums (differentiable path) and the final image
+    fetch.
   - every process executes the SAME jitted program (SPMD); JAX requires
     multihost collectives to be launched in lockstep, which the render loop
     does naturally.
   - per-host data: each process builds only its addressable shards of the
     accumulation image (jax.make_array_from_callback), so no host ever
-    materializes the full pool — the DCN boundary is crossed only by
+    materializes the full pool — the host boundary is crossed only by
     `fetch_image`'s allgather at save time.
 
 Tested with N processes on CPU (tests/test_multihost.py spawns real
-processes with a localhost coordinator; same code path works for TPU pods,
-where initialize() discovers the topology without arguments).
+processes with a localhost coordinator). On GPU hosts pass the coordinator
+address, process count and process id explicitly.
 """
 from __future__ import annotations
 
@@ -43,9 +44,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Wire this process into the multi-host job.
 
-    On TPU pods call with no arguments (topology is discovered); for
-    multi-process CPU/testing pass an explicit localhost coordinator. Must
-    run before any other JAX call that touches a backend.
+    Pass the coordinator address (`host:port`), the process count and this
+    process's id; tests use a localhost coordinator. Must run before any
+    other JAX call that touches a backend.
     """
     kwargs = {}
     if coordinator_address is not None:

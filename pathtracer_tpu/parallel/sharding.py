@@ -1,11 +1,12 @@
-"""Multi-chip data parallelism over the ray pool.
+"""Multi-device data parallelism over the ray pool.
 
-TPU-native mapping of the workload's one big axis (SURVEY.md §2.6): pixels/rays
-are sharded across chips on a 1-D mesh via shard_map; the scene + BVH are
-replicated in every chip's HBM (broadcast once at scene upload); tracing does
-ZERO inter-chip communication (a ray's pixel never leaves its shard). The only
-collectives are:
-  - psum of parameter gradients in the differentiable path (ICI all-reduce),
+Mapping of the workload's one big axis (SURVEY.md §2.6): pixels/rays are
+sharded across devices on a 1-D mesh via shard_map; the scene + BVH are
+replicated in every device's memory (broadcast once at scene upload); tracing
+does ZERO inter-device communication (a ray's pixel never leaves its shard).
+The only collectives are:
+  - psum of parameter gradients in the differentiable path (an all-reduce
+    that XLA hands to NCCL on GPUs),
   - the final image assembly, which is just the natural output sharding
     (all_gather only when the host fetches the image).
 
@@ -14,7 +15,7 @@ module is the from-scratch scaling design the north star requires.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Optional
 
 import jax
@@ -69,8 +70,16 @@ def render_chunk_sharded(scene: SceneArrays, settings: RenderSettings,
     """`n_iters` progressive iterations with the ray pool sharded over `mesh`.
 
     Each shard renders its own pixel block with an independent RNG stream;
-    no cross-chip traffic inside the loop.
+    no cross-device traffic inside the loop. The compiled program is built
+    once per (settings, mesh, n_iters, seed, early_exit) and reused.
     """
+    run = _chunk_program(settings, mesh, n_iters, seed, early_exit)
+    return run(scene, accum, jnp.asarray(start_iteration, jnp.int32))
+
+
+@lru_cache(maxsize=None)
+def _chunk_program(settings: RenderSettings, mesh: Mesh, n_iters: int,
+                   seed: int, early_exit: bool):
     n_shards = mesh.shape[RAY_AXIS]
     n_total = settings.pixel_count
     assert n_total % n_shards == 0, (
@@ -79,9 +88,9 @@ def render_chunk_sharded(scene: SceneArrays, settings: RenderSettings,
     settings = _interleaved(settings, n_shards)
 
     @jax.jit
-    @partial(jax.shard_map, mesh=mesh, in_specs=(P(), P(RAY_AXIS)),
+    @partial(jax.shard_map, mesh=mesh, in_specs=(P(), P(RAY_AXIS), P()),
              out_specs=P(RAY_AXIS), check_vma=False)
-    def run(scene, accum):
+    def run(scene, accum, start_iteration):
         shard = jax.lax.axis_index(RAY_AXIS)
         offset = shard * n_local
 
@@ -96,7 +105,7 @@ def render_chunk_sharded(scene: SceneArrays, settings: RenderSettings,
                                 jnp.arange(n_iters, dtype=jnp.int32))
         return accum
 
-    return run(scene, accum)
+    return run
 
 
 def render_sharded(scene: SceneArrays, settings: RenderSettings,
@@ -221,7 +230,7 @@ def shard_work_counts(scene: SceneArrays, settings: RenderSettings,
     only *controllable* efficiency loss is per-shard work imbalance: a
     shard whose pixels' paths die early idles while the worst shard
     finishes. max/mean of these counts is therefore a machine-checkable
-    upper bound proxy for achievable scaling efficiency (the ICI psum and
+    upper bound proxy for achievable scaling efficiency (the psum and
     image gather are measured separately by the multihost tests).
 
     Returns [n_shards] int64 work counts.
@@ -260,18 +269,25 @@ def albedo_fit_step(scene: SceneArrays, settings: RenderSettings,
     The FULL training step the driver dry-runs multi-chip: render one
     iteration with the ray pool sharded (dp over rays), compute an L2 loss
     against the sharded target image, backprop through the whole bounce loop
-    (reparameterized sampling), psum the material-albedo gradient over ICI,
-    and apply SGD. Returns (new_scene, loss).
+    (reparameterized sampling), psum the material-albedo gradient over the
+    mesh, and apply SGD. Returns (new_scene, loss). The compiled step is
+    built once per (settings, mesh, lr, seed) and reused.
     """
+    step = _fit_program(settings, mesh, float(lr), seed)
+    return step(scene, target, jnp.asarray(iteration, jnp.int32))
+
+
+@lru_cache(maxsize=None)
+def _fit_program(settings: RenderSettings, mesh: Mesh, lr: float, seed: int):
     n_shards = mesh.shape[RAY_AXIS]
     n_local = settings.pixel_count // n_shards
     settings = _interleaved(settings, n_shards)
 
     @jax.jit
     @partial(jax.shard_map, mesh=mesh,
-             in_specs=(P(), P(RAY_AXIS)), out_specs=(P(), P()),
+             in_specs=(P(), P(RAY_AXIS), P()), out_specs=(P(), P()),
              check_vma=False)
-    def step(scene, target):
+    def step(scene, target, iteration):
         shard = jax.lax.axis_index(RAY_AXIS)
         offset = shard * n_local
 
@@ -287,8 +303,8 @@ def albedo_fit_step(scene: SceneArrays, settings: RenderSettings,
             return local / (3.0 * settings.pixel_count)
 
         local_loss, g_local = jax.value_and_grad(loss_fn)(scene.materials.color)
-        # Each shard's grad covers only its own pixels; all-reduce over ICI
-        # gives the full gradient replicated on every chip (the gradient
+        # Each shard's grad covers only its own pixels; the all-reduce
+        # gives the full gradient replicated on every device (the gradient
         # all-reduce of SURVEY.md §2.6 / §5).
         g = jax.lax.psum(g_local, RAY_AXIS)
         loss = jax.lax.psum(local_loss, RAY_AXIS)
@@ -297,4 +313,4 @@ def albedo_fit_step(scene: SceneArrays, settings: RenderSettings,
             materials=scene.materials._replace(color=new_color))
         return new_scene, loss
 
-    return step(scene, target)
+    return step

@@ -12,11 +12,11 @@ Algorithm replicates reference src/bvhnode.cpp:
 
 Two deliberate departures from the reference (bvhnode.cpp:165-169 uses
 exactly one triangle per leaf):
-  - `max_leaf` triangles per leaf (default 4). Leaf triangles are contiguous
-    in the reordered array, which the Pallas packet-traversal kernel
-    (ops/bvh_pallas.py) streams without per-lane gathers; fewer, fatter
-    leaves also shorten the walk. max_leaf=1 reproduces the reference shape.
-  - parent/sibling links for the stackless walk (ops/intersect.py).
+  - `max_leaf` triangles per leaf (default 4; the loader's MAX_LEAF). Leaf
+    triangles are contiguous in the reordered array; fewer, fatter leaves
+    shorten the walk. max_leaf=1 reproduces the reference shape.
+  - parent/sibling links for the stackless walks (ops/intersect.py,
+    ops/bvh_walk.py).
 
 The builder is vectorized NumPy over per-triangle precomputed bounds/centroids.
 """
@@ -62,6 +62,11 @@ def _load_native() -> Optional[ctypes.CDLL]:
         f32p, f32p, i32p, i32p, i32p, i32p, i32p, i64p]
     _native_lib = lib
     return lib
+
+
+def builder_name() -> str:
+    """Which builder `build_bvh(backend="auto")` uses here."""
+    return "native" if _load_native() is not None else "numpy"
 
 
 def _build_bvh_native(lib, tris, use_sah: bool, max_leaf: int):
@@ -236,44 +241,3 @@ def build_bvh(tris: Dict[str, np.ndarray], use_sah: bool = True,
     reordered = {k: tris[k][lo] for k in
                  ("v0", "v1", "v2", "n0", "n1", "n2", "material_id")}
     return nodes, reordered
-
-
-def align_leaves(nodes: Dict[str, np.ndarray],
-                 reordered: Dict[str, np.ndarray], row: int = 6
-                 ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    """Pad each leaf's triangle range to start on a `row` boundary.
-
-    The Pallas packet kernel packs `row` triangles per 128-lane VMEM row
-    (scene/types.py TRIS_PER_ROW); with aligned leaves a whole leaf is ONE
-    row load + static extracts instead of a dynamic roll per triangle.
-    Padding slots duplicate the leaf's first triangle but are masked out by
-    tri_count, so results are unchanged. Works on either builder's output.
-    """
-    leaf = nodes["tri_count"] > 0
-    order = np.argsort(nodes["tri_first"][leaf])
-    leaf_ids = np.where(leaf)[0][order]
-
-    new_first = np.array(nodes["tri_first"])
-    src_slices = []
-    cursor = 0
-    for li in leaf_ids:
-        f, c = nodes["tri_first"][li], nodes["tri_count"][li]
-        cursor = -(-cursor // row) * row      # round up to row boundary
-        new_first[li] = cursor
-        src_slices.append((cursor, f, c))
-        cursor += c
-    total = -(-cursor // row) * row
-
-    out = {}
-    for k, arr in reordered.items():
-        shape = (total,) + arr.shape[1:]
-        dst = np.zeros(shape, arr.dtype)
-        for start, f, c in src_slices:
-            dst[start:start + c] = arr[f:f + c]
-            # pad the rest of the row with the first triangle (masked out)
-            pad_end = min(-(-(start + c) // row) * row, total)
-            dst[start + c:pad_end] = arr[f]
-        out[k] = dst
-    nodes = dict(nodes)
-    nodes["tri_first"] = new_first.astype(np.int32)
-    return nodes, out

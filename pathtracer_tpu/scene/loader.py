@@ -27,13 +27,31 @@ import numpy as np
 
 from ..utils.math import PI, build_transformation_matrix, inverse_transpose, normalize
 from . import obj as obj_loader
-from .bvh import align_leaves, build_bvh
-from .bvh8 import build_wide_bvh, concat_wide
+from .bvh import build_bvh
 from .types import CUBE, MESH, SPHERE, RenderSettings, SceneArrays, make_scene_arrays
 
-# tri count above which a mesh gets fat 288-tri treelets (48 rows) and the
-# binned intersector runs 4 cull->bin->stream passes (TPU-swept on alien)
-BIG_MESH_TRIS = 24000
+# triangles per BVH leaf for every mesh, swept on the H100 over {1, 2, 4, 8}
+# (PERF.md, tools/walk_sweep.py): 1, the reference's own (bvhnode.cpp:
+# 165-169), gave the fastest teapot and alien frames
+MAX_LEAF = 1
+
+# mesh traversal per JAX platform (ops/intersect.py BVH_IMPLS)
+BVH_IMPL_BY_PLATFORM = {"gpu": "triton", "cpu": "jnp"}
+
+
+def default_bvh_impl(platform: Optional[str] = None) -> str:
+    """The mesh traversal for `platform` (default: JAX's default backend):
+    the GPU kernel on "gpu", the plain-XLA walk on "cpu". Any other platform
+    has no mesh traversal and raises."""
+    if platform is None:
+        import jax
+        platform = jax.default_backend()
+    try:
+        return BVH_IMPL_BY_PLATFORM[platform]
+    except KeyError:
+        raise RuntimeError(
+            f"no mesh traversal for platform {platform!r}; supported: "
+            f"{sorted(BVH_IMPL_BY_PLATFORM)}") from None
 
 
 def _parse_material(p: dict) -> dict:
@@ -134,28 +152,15 @@ def orbit_camera(cam: dict, zoom: float, theta: float, phi: float,
 
 
 def load_scene(path: str, orbit: bool = True,
-               overrides: Optional[dict] = None,
-               max_leaf: Optional[int] = None, brute_tables: bool = False,
-               tre_rows: Optional[int] = None, wide_tables: bool = False
+               overrides: Optional[dict] = None
                ) -> Tuple[SceneArrays, RenderSettings]:
     """Load a scene JSON; returns (device arrays, static settings).
 
     `orbit=True` applies the reference app's startup camera rebuild (the camera
     actually used for its published renders). `overrides` patches camera-block
     values (e.g. {"RES": [256,256], "ITERATIONS": 64}) for small test configs.
-
-    `max_leaf=None` picks the fat-leaf size per mesh by triangle count:
-    big meshes get 288-tri treelets (48 tri rows — TPU-swept on alien bounce
-    rays: 89.0 ms vs 98.1 at 96/16; fewer distinct ids per stream block and
-    a 3x cheaper cull sweep), small meshes keep 96 (teapot was neutral-to-
-    worse at 192: 28.9 vs 24.8 ms). `tre_rows` overrides the scene's
-    rows-per-treelet bound (the stream kernel's static unroll length,
-    carried in SceneArrays.treelet_rows.shape).
-
-    `wide_tables=True` additionally builds the 8-wide BVH tables for the
-    measured-dead-end packet-stack kernel (ops/wide.py, bvh_impl="wide" /
-    fallback_impl="wide"); off by default so mesh loads do zero bvh8 work
-    — the production binned intersector never touches them."""
+    Every mesh gets a SAH BVH with MAX_LEAF triangles per leaf; the mesh
+    traversal follows JAX's platform (default_bvh_impl)."""
     with open(path, "r") as f:
         data = json.load(f)
 
@@ -175,8 +180,6 @@ def load_scene(path: str, orbit: bool = True,
     node_count = 0
     tri_count = 0
     mesh_id = 0
-    wide_meshes = []   # per-mesh (wide_nodes, tris8) for the 8-wide kernel
-    scene_tre_rows = 16   # rows-per-treelet bound over all meshes (min 16)
 
     for p in data["Objects"]:
         t = p["TYPE"]
@@ -201,16 +204,7 @@ def load_scene(path: str, orbit: bool = True,
             scal = p.get("SCALE", (1.0, 1.0, 1.0))
             tris = obj_loader.load_obj(resolved, override_id, trans, rotat, scal,
                                        materials)
-            n_tris = len(tris["v0"])
-            ml = max_leaf if max_leaf is not None else (
-                288 if n_tris > BIG_MESH_TRIS else 96)
-            scene_tre_rows = max(scene_tre_rows, -(-ml // 6))
-            nodes, reordered = build_bvh(tris, max_leaf=ml)
-            nodes, reordered = align_leaves(nodes, reordered)
-            if wide_tables:
-                # independent small-leaf 8-wide tree for ops/wide.py (its
-                # own triangle reorder; group indices offset at concat time)
-                wide_meshes.append(build_wide_bvh(tris))
+            nodes, reordered = build_bvh(tris, max_leaf=MAX_LEAF)
             # Global offset fix-up (scene.cpp:178-189)
             n_new = nodes["tri_first"].shape[0]
             is_leaf = nodes["tri_count"] > 0
@@ -271,13 +265,11 @@ def load_scene(path: str, orbit: bool = True,
     settings = RenderSettings(
         width=width,
         height=height,
-        # tile-major lane order only pays for mesh traversal coherence; the
-        # index math costs ~0.3 ms/frame on meshless scenes
+        # tile-major lane order groups neighbouring pixels into one kernel
+        # block (mesh traversal coherence); meshless scenes skip its index
+        # math
         tile=pick_tile(width, height) if node_count else None,
-        # mesh scenes default to the binned-treelet intersector — the
-        # engine-measured fastest (teapot d4: binned 103-110 / sorted 189 /
-        # packet 358 ms; alien d4: 378-392 / 735 / 1213 ms; BENCH.md)
-        bvh_impl="binned" if node_count else "pallas",
+        bvh_impl=default_bvh_impl(),
         any_glossy=any(m["has_reflective"] != 0.0 and m["has_refractive"] == 0.0
                        for m in materials),
         any_refractive=any(m["has_refractive"] != 0.0 for m in materials),
@@ -295,9 +287,5 @@ def load_scene(path: str, orbit: bool = True,
     else:
         bvh_nodes, bvh_tris = None, None
 
-    wide_data = concat_wide(wide_meshes) if wide_meshes else None
-    arrays = make_scene_arrays(geoms, materials, bvh_nodes, bvh_tris, cam,
-                               brute_tables=brute_tables, wide_data=wide_data,
-                               tre_rows=(tre_rows if tre_rows is not None
-                                         else scene_tre_rows))
+    arrays = make_scene_arrays(geoms, materials, bvh_nodes, bvh_tris, cam)
     return arrays, settings

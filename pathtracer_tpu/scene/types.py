@@ -1,6 +1,6 @@
-"""Scene data model: flat SoA arrays, TPU-resident, pytree-registered.
+"""Scene data model: flat SoA arrays, device-resident, pytree-registered.
 
-This is the TPU-native analogue of the reference's seven device buffers uploaded
+This is the analogue of the reference's seven device buffers uploaded
 in pathtraceInit (reference src/pathtrace.cu:143-233): geoms, materials, BVH
 nodes, BVH triangles, plus camera parameters. Everything dynamic (differentiable
 or device-resident) lives in NamedTuples (automatic pytrees); static shape-/
@@ -79,426 +79,6 @@ class BVHArrays(NamedTuple):
     sibling: jnp.ndarray       # [N] int32, right sibling of a left child
 
 
-NODES_PER_FROW = 16   # 16 nodes x 8 f32 fields = 128 lanes
-NODES_PER_IROW = 32   # 32 nodes x 4 i32 fields = 128 lanes
-TRIS_PER_ROW = 6      # 6 tris x 20 f32 fields = 120 lanes (+8 pad)
-TRI_STRIDE = 20
-TREELETS_PER_FROW = 16  # 16 treelets x 8 f32 fields (bounds) = 128 lanes
-TREELETS_PER_IROW = 32  # 32 treelets x 4 i32 fields (row range) = 128 lanes
-TREELET_NONE = 0x3FFFFFF  # "no treelet" id sentinel (reduction-safe int32)
-MAX_TRE_ROWS = 16         # rows per treelet bound (static stream unroll)
-CHUNK_GATE_ROWS = 4       # tri rows per chunk-gate AABB (treelet_chunk):
-#                           the stream kernel slab-tests a chunk's union box
-#                           against every lane's CURRENT best before running
-#                           its 4x6 triangle tests — a skipped chunk cannot
-#                           contain an updating hit (any ray-tri hit inside
-#                           the box has ray-t inside the box's slab interval)
-
-
-def repartition_treelet_rows(row_min, row_max, max_rows: int,
-                             c0: float = 20.0, lam: float = None):
-    """DP re-partition of the DFS-ordered triangle rows into treelets.
-
-    Treelets need not be BVH leaves — ANY partition of the row sequence into
-    contiguous ranges (each with a bounding box over its rows) is exact: the
-    binned pipeline's correctness only requires that every triangle is in
-    exactly one treelet whose box bounds it. SAH fat leaves stop early, so
-    leaf-treelets run ~63-72% occupancy (alien: 262 treelets of mean 30/48
-    rows), and every cold stream visit pays the padding. This DP picks the
-    cheapest boundaries directly: minimize
-        sum_g area(union(rows of g)) * (c0 + n_rows(g)),  n_rows(g) <= max_rows
-    i.e. expected want-rate (surface area) times visit cost (a fixed per-visit
-    overhead of ~c0 row-equivalents plus the streamed rows), PLUS a flat
-    per-treelet cost `lam` for the id-count terms the area term cannot see
-    (every treelet is slab-tested by the cull sweep in every live block, and
-    every distinct id present in a stream block is one visit regardless of
-    how few lanes want it — the measured dispersion tail). Without `lam` the
-    DP shatters the mesh into tiny tight boxes (total surface area drops
-    superlinearly when boxes shrink) and the cull + visit counts explode.
-    `lam=None` scales it to the mesh: mean-row-area x (c0 + max_rows) x 2 —
-    i.e. one extra treelet must pay for itself against roughly the cost of a
-    full half-occupied visit at mean row area. Rows are in BVH DFS order, so
-    consecutive rows are spatial neighbors and the unions stay tight; the DP
-    may merge across leaf/subtree boundaries when that is cheaper, and a
-    distant pair (e.g. a mesh boundary in a multi-mesh forest) is naturally
-    rejected by the area blow-up.
-
-    Returns (row0, nrows) int arrays, a partition of [0, n_rows_total).
-    """
-    n = row_min.shape[0]
-    w = min(max_rows, n)
-    # windowed unions: umin[k-1, i] = min over rows [i, i+k)
-    umin = np.full((w, n, 3), np.inf, np.float32)
-    umax = np.full((w, n, 3), -np.inf, np.float32)
-    umin[0], umax[0] = row_min, row_max
-    for k in range(1, w):
-        umin[k, :n - k] = np.minimum(umin[k - 1, :n - k], row_min[k:])
-        umax[k, :n - k] = np.maximum(umax[k - 1, :n - k], row_max[k:])
-    d = np.maximum(umax - umin, 0.0)
-    area = 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
-                  + d[..., 2] * d[..., 0])               # [w, n]
-    ks = np.arange(1, w + 1, dtype=np.float64)
-    if lam is None:
-        d1 = np.maximum(row_max - row_min, 0.0)
-        a1 = 2.0 * (d1[:, 0] * d1[:, 1] + d1[:, 1] * d1[:, 2]
-                    + d1[:, 2] * d1[:, 0])
-        lam = float(a1.mean()) * (c0 + max_rows) * 2.0
-    cost_w = area.astype(np.float64) * (c0 + ks)[:, None] + lam
-
-    best = np.full(n + 1, np.inf)
-    best[n] = 0.0
-    choice = np.zeros(n, np.int32)
-    for i in range(n - 1, -1, -1):
-        kmax = min(w, n - i)
-        cand = cost_w[:kmax, i] + best[i + 1:i + 1 + kmax]
-        k = int(np.argmin(cand))
-        best[i] = cand[k]
-        choice[i] = k + 1
-    row0, i = [], 0
-    while i < n:
-        row0.append(i)
-        i += int(choice[i])
-    row0 = np.asarray(row0, np.int64)
-    nrows = np.diff(np.append(row0, n)).astype(np.int64)
-    return row0, nrows
-
-
-REPARTITION = True  # default for pack_treelet_tables(repartition=None):
-#                     module-level so sweeps/A-Bs can flip it per load
-
-
-def pack_treelet_tables(nodes: dict, tris: dict = None, max_rows: int = None,
-                        repartition: bool = None):
-    """Treelet tables for the binned intersector (ops/binned.py).
-
-    A TREELET is a contiguous, row-aligned triangle range with an AABB —
-    by default re-partitioned from the DFS row order by
-    repartition_treelet_rows (fewer, fuller, tighter treelets than the
-    historical leaf-per-treelet choice; `repartition=False` restores that
-    for ablation). The binned intersector never walks the tree — it
-    enumerates treelets per ray by entry distance (cull kernel) and
-    streams each treelet's triangle rows over rays sorted to share treelets
-    (stream kernel). Treelets are emitted in tri_first order, which is DFS
-    order = spatially coherent, so consecutive ids are neighbors and a
-    sorted block's id RANGE stays small.
-
-    Layout (roll-extract records, see pack_bvh_tables):
-      treelet_f [ceil(T/16), 128] f32: 8 fields
-          (min_x, min_y, min_z, max_x, max_y, max_z, pad, pad)
-      treelet_i [ceil(T/32), 128] i32: 4 fields
-          (row_first, n_rows, pad, pad)   — rows into tris_packed
-      treelet_chunk [T_pad8, 128] f32 (when `tris` given): row g holds the
-          per-CHUNK_GATE_ROWS union AABBs of treelet g's tri rows — chunk c
-          (relative rows [4c, 4c+4)) at lanes [c*8 .. c*8+5] as
-          (min_x,min_y,min_z,max_x,max_y,max_z); empty/past-end chunks are
-          inverted boxes (slab always fails). Static lane extracts per
-          unrolled chunk — no dynamic rolls.
-    Padding treelets carry inverted boxes (min=+inf) and n_rows=0: never
-    wanted, harmless if streamed.
-    """
-    leaf = nodes["tri_count"] > 0
-    order = np.argsort(nodes["tri_first"][leaf], kind="stable")
-    lmin = np.asarray(nodes["bounds_min"], np.float32)[leaf][order]
-    lmax = np.asarray(nodes["bounds_max"], np.float32)[leaf][order]
-    first = nodes["tri_first"][leaf][order]
-    count = nodes["tri_count"][leaf][order]
-    assert (first % TRIS_PER_ROW == 0).all()
-    if repartition is None:
-        repartition = REPARTITION
-    if max_rows is None:
-        max_rows = MAX_TRE_ROWS
-
-    # per-TRI-ROW AABBs over the reordered triangle array (a row's union is
-    # exactly what the stream kernel tests for that row; zero-padding tris
-    # beyond nt are degenerate -> excluded)
-    row_min = row_max = None
-    if tris is not None:
-        nt = tris["v0"].shape[0]
-        rows_t = -(-nt // TRIS_PER_ROW)
-        vmin = np.minimum(np.minimum(tris["v0"], tris["v1"]), tris["v2"])
-        vmax = np.maximum(np.maximum(tris["v0"], tris["v1"]), tris["v2"])
-        pmin = np.full((rows_t * TRIS_PER_ROW, 3), np.inf, np.float32)
-        pmax = np.full((rows_t * TRIS_PER_ROW, 3), -np.inf, np.float32)
-        pmin[:nt] = vmin
-        pmax[:nt] = vmax
-        row_min = pmin.reshape(rows_t, TRIS_PER_ROW, 3).min(axis=1)
-        row_max = pmax.reshape(rows_t, TRIS_PER_ROW, 3).max(axis=1)
-
-    if tris is not None and repartition and row_min.shape[0] > 1:
-        t_row0, t_nrows = repartition_treelet_rows(row_min, row_max,
-                                                   max_rows)
-        first = t_row0 * TRIS_PER_ROW
-        count = t_nrows * TRIS_PER_ROW
-        # treelet boxes = exact unions of their rows' AABBs
-        lmin = np.stack([row_min[r0:r0 + k].min(axis=0)
-                         for r0, k in zip(t_row0, t_nrows)]).astype(
-            np.float32)
-        lmax = np.stack([row_max[r0:r0 + k].max(axis=0)
-                         for r0, k in zip(t_row0, t_nrows)]).astype(
-            np.float32)
-    T = first.shape[0]
-
-    tf = -(-T // TREELETS_PER_FROW) * TREELETS_PER_FROW
-    f = np.zeros((tf, 8), np.float32)
-    f[:, 0:3] = np.float32(np.inf)
-    f[:, 3:6] = -np.float32(np.inf)
-    f[:T, 0:3] = lmin
-    f[:T, 3:6] = lmax
-    packed_f = f.reshape(-1, 128)
-
-    ti = -(-T // TREELETS_PER_IROW) * TREELETS_PER_IROW
-    i = np.zeros((ti, 4), np.int32)
-    i[:T, 0] = first // TRIS_PER_ROW
-    i[:T, 1] = -(-count // TRIS_PER_ROW)
-    assert int(i[:, 1].max(initial=0)) <= max_rows, (
-        "treelet exceeds the rows bound — lower max_leaf or raise tre_rows")
-    packed_i = i.reshape(-1, 128)
-
-    # SUPER table: one super per treelet_f ROW (16 consecutive DFS treelets
-    # = one subtree-ish spatial group); one 128-lane row per super with the
-    # union bounds at lanes 0..5 (static extracts, no rolls). The cull
-    # kernel slab-tests the super first and skips the row's 16 treelets
-    # when no lane in the block wants it.
-    n_rows_f = packed_f.shape[0]
-    grp = f.reshape(n_rows_f, TREELETS_PER_FROW, 8)
-    sup = np.zeros((n_rows_f, 128), np.float32)
-    sup[:, 0:3] = grp[:, :, 0:3].min(axis=1)
-    sup[:, 3:6] = grp[:, :, 3:6].max(axis=1)
-
-    if tris is None:
-        chunk = np.zeros((8, 128), np.float32)
-        chunk[:, 0::8] = np.inf
-        chunk[:, 1::8] = np.inf
-        chunk[:, 2::8] = np.inf
-        chunk[:, 3::8] = -np.inf
-        chunk[:, 4::8] = -np.inf
-        chunk[:, 5::8] = -np.inf
-        return (jnp.asarray(packed_f), jnp.asarray(packed_i),
-                jnp.asarray(sup), jnp.asarray(chunk))
-
-    n_chunks = -(-max_rows // CHUNK_GATE_ROWS)
-    assert n_chunks * 8 <= 128, (
-        "treelet rows bound too large for one chunk-gate row per treelet")
-    t_pad = -(-max(T, 1) // 8) * 8
-    chunk = np.zeros((t_pad, 128), np.float32)
-    chunk[:, 0::8] = np.inf
-    chunk[:, 1::8] = np.inf
-    chunk[:, 2::8] = np.inf
-    chunk[:, 3::8] = -np.inf
-    chunk[:, 4::8] = -np.inf
-    chunk[:, 5::8] = -np.inf
-    row0 = first // TRIS_PER_ROW
-    nrows = -(-count // TRIS_PER_ROW)
-    for g in range(T):
-        for c in range(n_chunks):
-            r0 = int(row0[g]) + c * CHUNK_GATE_ROWS
-            r1 = min(int(row0[g]) + int(nrows[g]), r0 + CHUNK_GATE_ROWS)
-            if r0 >= r1:
-                break
-            chunk[g, c * 8:c * 8 + 3] = row_min[r0:r1].min(axis=0)
-            chunk[g, c * 8 + 3:c * 8 + 6] = row_max[r0:r1].max(axis=0)
-    return (jnp.asarray(packed_f), jnp.asarray(packed_i), jnp.asarray(sup),
-            jnp.asarray(chunk))
-
-
-WIDE_NODES_PER_BLOCK = 16  # wide nodes per (8,128) table block: node j's
-#                            field f at lane j*8+f, child c at sublane c
-WIDE_GROUPS_PER_BLOCK = 6  # 8-tri groups per (8,128) tris8 block: group g
-#                            at lanes (g%6)*20..+19, triangle t at sublane t
-
-
-def pack_wide_tables(wide_nodes, tris8: dict):
-    """Tables for the 8-wide BVH packet kernel (ops/wide.py).
-
-    The kernel's unit of work is one (8, 128) VPU tile, so both tables put
-    the 8-way parallel record dimension on SUBLANES:
-
-      nodes8_f [ceil(W/16)*8, 128] f32 — wide node j of block g lives at
-          rows g*8..g*8+7 (sublane = child slot 0..7), lanes j*8+f with
-          f = (min_x, min_y, min_z, max_x, max_y, max_z, pad, pad).
-          Empty child slots hold NaN boxes (every slab comparison is then
-          False) and are additionally masked by kind == 0.
-      nodes8_i same geometry, i32, f = (kind, a, b, axis):
-          kind 0 empty / 1 internal (a = wide node idx) / 2 leaf
-          (a = first 8-tri group, b = group count); axis = the node's
-          child-sort axis, replicated into every slot so the kernel can
-          read it from sublane 0.
-      tris8 [ceil(G/6)*8, 128] f32 — 8-triangle group g lives at rows
-          (g//6)*8.., sublane = triangle, lanes (g%6)*20 + f with the same
-          20 fields as pack_bvh_tables rows (v0, e1, e2, n0, n1, n2, mat,
-          pad). Table-tail padding triangles are all-zero => Möller-
-          Trumbore determinant 0 => never valid.
-    """
-    w = len(wide_nodes)
-    blocks = -(-w // WIDE_NODES_PER_BLOCK)
-    nf = np.full((blocks * 8, 128), np.nan, np.float32)
-    ni = np.zeros((blocks * 8, 128), np.int32)
-    for j, nd in enumerate(wide_nodes):
-        g, k = divmod(j, WIDE_NODES_PER_BLOCK)
-        base = k * 8
-        for c, ((kind, a, b), (mn, mx)) in enumerate(
-                zip(nd["children"], nd["boxes"])):
-            nf[g * 8 + c, base:base + 3] = mn
-            nf[g * 8 + c, base + 3:base + 6] = mx
-            ni[g * 8 + c, base:base + 4] = (kind, a, b, nd["axis"])
-        for c in range(len(nd["children"]), 8):
-            ni[g * 8 + c, base + 3] = nd["axis"]
-
-    nt = tris8["v0"].shape[0]
-    assert nt % 8 == 0, "tris8 must be 8-aligned (scene/bvh8.py)"
-    ngroups = nt // 8
-    tblocks = -(-ngroups // WIDE_GROUPS_PER_BLOCK)
-    t = np.zeros((nt, TRI_STRIDE), np.float32)
-    t[:, 0:3] = tris8["v0"]
-    t[:, 3:6] = tris8["v1"] - tris8["v0"]
-    t[:, 6:9] = tris8["v2"] - tris8["v0"]
-    t[:, 9:12] = tris8["n0"]
-    t[:, 12:15] = tris8["n1"]
-    t[:, 15:18] = tris8["n2"]
-    t[:, 18] = tris8["material_id"].astype(np.float32)
-    packed = np.zeros((tblocks * 8, 128), np.float32)
-    g4 = np.zeros((tblocks * WIDE_GROUPS_PER_BLOCK, 8, TRI_STRIDE),
-                  np.float32)
-    g4[:ngroups] = t.reshape(ngroups, 8, TRI_STRIDE)
-    g4 = g4.reshape(tblocks, WIDE_GROUPS_PER_BLOCK, 8, TRI_STRIDE)
-    for gg in range(WIDE_GROUPS_PER_BLOCK):
-        packed[:, gg * TRI_STRIDE:(gg + 1) * TRI_STRIDE] = (
-            g4[:, gg].reshape(tblocks * 8, TRI_STRIDE))
-    return (jnp.asarray(nf), jnp.asarray(ni), jnp.asarray(packed))
-
-
-MXU_TRI_TILE = 512    # triangles per MXU brute-force tile
-MXU_NFEAT = 16        # per-ray feature vector [d, o, o x d, 1] padded 10->16
-
-
-def pack_tris_mxu(tris: dict):
-    """Coefficient tables for the MXU brute-force intersector
-    (ops/bvh_pallas.py mesh_intersect_brute).
-
-    Moller-Trumbore per (ray, tri) reduces to FOUR quantities that are LINEAR
-    in the 10-dim per-ray feature vector F = [d, o, o x d, 1]:
-      a  = d . (e2 x e1)                       (the MT determinant)
-      un = (s x d) . e2 = (o x d) . e2 - d . (e2 x v0)      (= u * a)
-      vn = d . (s x e1) = -(o x d) . e1 - d . (v0 x e1)     (= v * a)
-      tn = s . (e1 x e2) = o . (e1 x e2) - v0 . (e1 x e2)   (= t * a)
-    so one [4*TILE, 16] @ [16, 128] matmul tests 512 triangles against 128
-    rays at once. The sign-free validity tests (u in [0,1] etc.) are then
-    a-weighted comparisons on the VPU.
-
-    Returns (coeffs [Tt*4*TILE, 16] f32, attrs [Tt*TILE, 16] f32) where attrs
-    rows are (n0, n1, n2, material_id, ...pad); triangles padded to a TILE
-    multiple with degenerate (a == 0) entries.
-    """
-    v0 = np.asarray(tris["v0"], np.float64)
-    v1 = np.asarray(tris["v1"], np.float64)
-    v2 = np.asarray(tris["v2"], np.float64)
-    e1 = v1 - v0
-    e2 = v2 - v0
-    t = v0.shape[0]
-    tpad = -(-t // MXU_TRI_TILE) * MXU_TRI_TILE
-    n_tiles = tpad // MXU_TRI_TILE
-
-    def cr(a, b):
-        return np.cross(a, b)
-
-    ca = np.zeros((tpad, MXU_NFEAT), np.float64)
-    cu = np.zeros((tpad, MXU_NFEAT), np.float64)
-    cv = np.zeros((tpad, MXU_NFEAT), np.float64)
-    ct = np.zeros((tpad, MXU_NFEAT), np.float64)
-    ca[:t, 0:3] = cr(e2, e1)                       # a: d coefs
-    cu[:t, 0:3] = -cr(e2, v0)                      # un: d coefs
-    cu[:t, 6:9] = e2                               # un: (o x d) coefs
-    cv[:t, 0:3] = -cr(v0, e1)                      # vn: d coefs
-    cv[:t, 6:9] = -e1                              # vn: (o x d) coefs
-    n_geo = cr(e1, e2)
-    ct[:t, 3:6] = n_geo                            # tn: o coefs
-    ct[:t, 9] = -(v0 * n_geo).sum(axis=1)          # tn: const
-    # interleave per tile: [a-block; u-block; v-block; t-block] x n_tiles
-    coeffs = np.zeros((n_tiles, 4, MXU_TRI_TILE, MXU_NFEAT), np.float64)
-    for k in range(n_tiles):
-        sl = slice(k * MXU_TRI_TILE, (k + 1) * MXU_TRI_TILE)
-        coeffs[k, 0] = ca[sl]
-        coeffs[k, 1] = cu[sl]
-        coeffs[k, 2] = cv[sl]
-        coeffs[k, 3] = ct[sl]
-    coeffs = coeffs.reshape(n_tiles * 4 * MXU_TRI_TILE, MXU_NFEAT)
-
-    attrs = np.zeros((tpad, MXU_NFEAT), np.float64)
-    attrs[:t, 0:3] = np.asarray(tris["n0"], np.float64)
-    attrs[:t, 3:6] = np.asarray(tris["n1"], np.float64)
-    attrs[:t, 6:9] = np.asarray(tris["n2"], np.float64)
-    attrs[:t, 9] = np.asarray(tris["material_id"], np.float64)
-    return (jnp.asarray(coeffs, jnp.float32), jnp.asarray(attrs, jnp.float32))
-
-
-def pack_bvh_tables(nodes: dict, tris: dict):
-    """Pack BVH + triangles into 128-lane rows for the Pallas packet kernel.
-
-    VMEM tiles are (8, 128): narrow [N, F] tables would waste 128/F lanes, so
-    multiple records share a row and the kernel extracts one with a dynamic
-    pltpu.roll (ops/bvh_pallas.py). Layouts:
-      nodes_f [ceil(Nn/16), 128] f32: per node 8 fields
-          (min_x,min_y,min_z,max_x,max_y,max_z, pad, pad)
-      nodes_i [ceil(Nn/32), 128] i32: per node 4 fields
-          (tri_first, tri_count, sibling, parent)
-      tris_f  [ceil(Nt/6), 128] f32: per tri 20 fields
-          (v0, e1, e2, n0, n1, n2, material_id, pad)
-    """
-    nn = nodes["tri_first"].shape[0]
-    leaf = nodes["tri_count"] > 0
-    assert (nodes["tri_first"][leaf] % TRIS_PER_ROW == 0).all(), (
-        "leaf ranges must be row-aligned (scene/bvh.py align_leaves) for the "
-        "packet kernel's one-load-per-leaf fast path")
-    f = np.zeros((nn, 8), np.float32)
-    f[:, 0:3] = nodes["bounds_min"]
-    f[:, 3:6] = nodes["bounds_max"]
-    rows_f = -(-nn // NODES_PER_FROW)
-    packed_f = np.zeros((rows_f * NODES_PER_FROW, 8), np.float32)
-    packed_f[:nn] = f
-    packed_f = packed_f.reshape(rows_f, 128)
-
-    i = np.zeros((nn, 4), np.int32)
-    i[:, 0] = nodes["tri_first"]
-    i[:, 1] = nodes["tri_count"]
-    i[:, 2] = nodes["sibling"]
-    i[:, 3] = nodes["parent"]
-    rows_i = -(-nn // NODES_PER_IROW)
-    packed_i = np.zeros((rows_i * NODES_PER_IROW, 4), np.int32)
-    packed_i[:nn] = i
-    # padding nodes must terminate a walk instantly if ever visited
-    packed_i[nn:, 2] = -1
-    packed_i[nn:, 3] = -1
-    packed_i = packed_i.reshape(rows_i, 128)
-
-    nt = tris["v0"].shape[0]
-    t = np.zeros((nt, TRI_STRIDE), np.float32)
-    t[:, 0:3] = tris["v0"]
-    t[:, 3:6] = tris["v1"] - tris["v0"]   # e1, precomputed
-    t[:, 6:9] = tris["v2"] - tris["v0"]   # e2
-    t[:, 9:12] = tris["n0"]
-    t[:, 12:15] = tris["n1"]
-    t[:, 15:18] = tris["n2"]
-    t[:, 18] = tris["material_id"].astype(np.float32)
-    rows_t = -(-nt // TRIS_PER_ROW)
-    packed_t = np.zeros((rows_t, 128), np.float32)
-    flat = np.zeros((rows_t * TRIS_PER_ROW, TRI_STRIDE), np.float32)
-    flat[:nt] = t
-    packed_t[:, :TRIS_PER_ROW * TRI_STRIDE] = flat.reshape(
-        rows_t, TRIS_PER_ROW * TRI_STRIDE)
-    # per-tri attrs for the deferred-gather epilogue (ops/binned.py
-    # STREAM_UV): the stream kernel stores (u, v, tri index) per winning
-    # lane and ONE XLA row-gather of this table replaces the in-loop
-    # normal interpolation. Values are byte-identical to packed_t fields
-    # 9..18 (same np.float32 source) so the deferred interp is bit-exact.
-    attrs = np.zeros((rows_t * TRIS_PER_ROW, 16), np.float32)
-    attrs[:nt, 0:3] = tris["n0"]
-    attrs[:nt, 3:6] = tris["n1"]
-    attrs[:nt, 6:9] = tris["n2"]
-    attrs[:nt, 9] = tris["material_id"].astype(np.float32)
-    return (jnp.asarray(packed_f), jnp.asarray(packed_i),
-            jnp.asarray(packed_t), jnp.asarray(attrs))
-
-
 class TriangleArrays(NamedTuple):
     """SoA of reference `TriangleVerts` (sceneStructs.h:61-69), world-space
     baked, fully component-split for 1-D gathers: 18 coordinate arrays [T]."""
@@ -556,31 +136,10 @@ class SceneArrays(NamedTuple):
     bvh: BVHArrays
     triangles: TriangleArrays
     camera: CameraArrays
-    # Row-packed tables for the Pallas packet-traversal kernel (see
-    # pack_bvh_tables); duplicate the bvh/triangles content in kernel layout.
-    bvh_packed_f: jnp.ndarray  # [Rf, 128] f32
-    bvh_packed_i: jnp.ndarray  # [Ri, 128] i32
-    tris_packed: jnp.ndarray   # [Rt, 128] f32
-    # Treelet (fat-leaf) tables for the binned intersector (ops/binned.py).
-    treelet_f: jnp.ndarray     # [ceil(T/16), 128] f32 bounds
-    treelet_i: jnp.ndarray     # [ceil(T/32), 128] i32 row ranges
-    treelet_super: jnp.ndarray  # [ceil(T/16), 128] f32 per-row union bounds
-    treelet_chunk: jnp.ndarray  # [T_pad8, 128] f32 per-chunk gate AABBs
-    # shape-only static side channel: treelet_rows.shape[0] is the scene's
-    # rows-per-treelet bound (the stream kernel's static unroll length) —
-    # scene-adaptive treelet sizing without threading a static through
-    # every intersect_scene caller
-    treelet_rows: jnp.ndarray  # [tre_rows] i32 zeros (shape carries info)
-    tri_attrs: jnp.ndarray     # [Nt_pad, 16] f32 (n0,n1,n2,mat) gather table
-    # MXU brute-force tables (pack_tris_mxu; incoherent-bounce fast path)
-    tris_mxu_c: jnp.ndarray    # [Tt*4*512, 16] f32
-    tris_mxu_n: jnp.ndarray    # [Tt*512, 16] f32
-    # 8-wide BVH tables for the per-packet-stack kernel (pack_wide_tables,
-    # ops/wide.py); one forest covers every mesh, rooted at wide_root[0].
-    nodes8_f: jnp.ndarray      # [Wb*8, 128] f32 child boxes
-    nodes8_i: jnp.ndarray      # [Wb*8, 128] i32 child meta
-    tris8: jnp.ndarray         # [Gb*8, 128] f32 8-tri groups
-    wide_root: jnp.ndarray     # [1] i32
+    # GPU kernel tables (ops/bvh_walk.py pack_walk_tables): one 32-byte
+    # record per node and (v0, e1, e2) per triangle, in global memory
+    walk_nodes: jnp.ndarray    # [N * 8] i32
+    walk_tris: jnp.ndarray     # [T * 9] f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -599,10 +158,8 @@ class RenderSettings:
     jitter: bool = True          # JITTER: Gaussian AA, sigma=0.005, clamp +-0.5
     dof: bool = True             # DOF: thin-lens, active iff lens_radius > 0
     sort_materials: bool = False  # COALESCED: material-key sort each bounce
-    # STREAM_COMPACT ablation mode (tile-granular work skipping). Measured
-    # ~10x SLOWER than masked lanes on TPU (engine/wavefront.py docstring):
-    # opt-in only — a True default would silently slow any resolution whose
-    # pixel count divides compact_tile.
+    # STREAM_COMPACT ablation mode (tile-granular work skipping); opt-in,
+    # not yet measured against masked lanes on the GPU (engine/wavefront.py)
     compact: bool = False
     compact_tile: int = 16384    # lanes per skippable tile (compact mode)
     fast_rng: bool = True        # PCG hash streams (vs jax threefry); see ops/rng.py
@@ -617,13 +174,13 @@ class RenderSettings:
     # Russian-roulette throughput termination from this bounce depth on
     # (0 = off, the reference's behavior; its README lists RR as future work).
     rr_start: int = 0
-    # mesh intersector: "wide" 8-wide BVH with per-packet SMEM stacks
-    # (ops/wide.py), "binned" treelet binning (ops/binned.py), "sorted"
-    # packet walk over coherence-sorted blocks, "pallas" unsorted packet
-    # walk, "jnp" per-ray stackless walk (reference-semantics testing),
-    # "brute" MXU brute force over all triangles (the reference's no-BVH
-    # ablation; needs load_scene(brute_tables=True))
-    bvh_impl: str = "pallas"
+    # mesh intersector (ops/intersect.py BVH_IMPLS): "triton" the GPU kernel
+    # (ops/bvh_walk.py), "jnp" the stackless walk in plain XLA. The loader
+    # picks by platform (scene/loader.py default_bvh_impl).
+    bvh_impl: str = "jnp"
+    # run Pallas kernels in the interpreter (CPU tests only; never derived
+    # from the backend)
+    interpret: bool = False
     look_at: tuple = (0.0, 0.0, 0.0)  # for orbit-camera controls (viewer)
     fovy_deg: float = 45.0
     # Static per-geom type tuple (SPHERE/CUBE/MESH): lets the trace-time geom
@@ -696,17 +253,9 @@ def _pad4(m: np.ndarray) -> np.ndarray:
 
 
 def make_scene_arrays(
-    geom_list, material_list, bvh_nodes, bvh_tris, camera,
-    brute_tables: bool = False, wide_data=None, tre_rows: int = None
+    geom_list, material_list, bvh_nodes, bvh_tris, camera
 ) -> SceneArrays:
-    """Build device SceneArrays from host-side Python lists/dicts (see loader).
-
-    brute_tables: also pack the MXU brute-force intersector tables (~14 MB of
-    HBM for the alien mesh) — only needed when mesh_intersect_brute is used.
-    wide_data: optional (wide_nodes, tris8_dict, root) from scene/bvh8.py
-    concat_wide for the 8-wide packet kernel; a degenerate empty forest is
-    packed when absent (the wide kernel then reports all-miss).
-    """
+    """Build device SceneArrays from host-side Python lists/dicts (see loader)."""
     g = len(geom_list)
     geoms = GeomArrays(
         gtype=jnp.asarray([x["type"] for x in geom_list], dtype=I32),
@@ -750,90 +299,39 @@ def make_scene_arrays(
     # static and non-zero even for meshless scenes (XLA needs static shapes).
     if bvh_nodes is None or len(bvh_nodes["bounds_min"]) == 0:
         inf = np.float32(np.inf)
-        bvh = BVHArrays(
-            min_x=jnp.full((1,), inf, F32), min_y=jnp.full((1,), inf, F32),
-            min_z=jnp.full((1,), inf, F32), max_x=jnp.full((1,), -inf, F32),
-            max_y=jnp.full((1,), -inf, F32), max_z=jnp.full((1,), -inf, F32),
-            tri_first=jnp.full((1,), -1, I32),
-            tri_count=jnp.zeros((1,), dtype=I32),
-            second_child=jnp.zeros((1,), dtype=I32),
-            parent=jnp.full((1,), -1, I32),
-            sibling=jnp.full((1,), -1, I32),
-        )
-        z1 = jnp.zeros((1,), F32)
-        tris = TriangleArrays(*([z1] * 18), material_id=jnp.zeros((1,), I32))
-        packed_f = jnp.zeros((1, 128), F32)
-        packed_i = jnp.full((1, 128), -1, I32)
-        packed_t = jnp.zeros((1, 128), F32)
-        tri_attrs = jnp.zeros((1, 16), F32)
-        inf_box = np.zeros((1, 16, 8), np.float32)
-        inf_box[..., 0:3] = np.inf
-        inf_box[..., 3:6] = -np.inf
-        treelet_f = jnp.asarray(inf_box.reshape(1, 128))
-        treelet_i = jnp.zeros((1, 128), I32)
-        sup = np.zeros((1, 128), np.float32)
-        sup[:, 0:3] = np.inf
-        sup[:, 3:6] = -np.inf
-        treelet_super = jnp.asarray(sup)
-        chk = np.zeros((8, 128), np.float32)
-        chk[:, 0::8] = np.inf
-        chk[:, 1::8] = np.inf
-        chk[:, 2::8] = np.inf
-        chk[:, 3::8] = -np.inf
-        chk[:, 4::8] = -np.inf
-        chk[:, 5::8] = -np.inf
-        treelet_chunk = jnp.asarray(chk)
-        # zero-row placeholder: distinguishable from real tables, so the
-        # brute intersector can REJECT scenes loaded without brute_tables
-        # instead of silently intersecting degenerate all-zero triangles
-        mxu_c = jnp.zeros((0, MXU_NFEAT), F32)
-        mxu_n = jnp.zeros((0, MXU_NFEAT), F32)
-    else:
-        bmin = np.asarray(bvh_nodes["bounds_min"], dtype=np.float32)
-        bmax = np.asarray(bvh_nodes["bounds_max"], dtype=np.float32)
-        bvh = BVHArrays(
-            min_x=jnp.asarray(bmin[:, 0]), min_y=jnp.asarray(bmin[:, 1]),
-            min_z=jnp.asarray(bmin[:, 2]), max_x=jnp.asarray(bmax[:, 0]),
-            max_y=jnp.asarray(bmax[:, 1]), max_z=jnp.asarray(bmax[:, 2]),
-            tri_first=jnp.asarray(bvh_nodes["tri_first"], dtype=I32),
-            tri_count=jnp.asarray(bvh_nodes["tri_count"], dtype=I32),
-            second_child=jnp.asarray(bvh_nodes["second_child"], dtype=I32),
-            parent=jnp.asarray(bvh_nodes["parent"], dtype=I32),
-            sibling=jnp.asarray(bvh_nodes["sibling"], dtype=I32),
-        )
-        tri_dict = {k: np.asarray(bvh_tris[k], dtype=np.float32)
-                    for k in ("v0", "v1", "v2", "n0", "n1", "n2")}
-        tri_dict["material_id"] = np.asarray(bvh_tris["material_id"],
-                                             dtype=np.int32)
-        packed_f, packed_i, packed_t, tri_attrs = pack_bvh_tables(
-            bvh_nodes, tri_dict)
-        treelet_f, treelet_i, treelet_super, treelet_chunk = (
-            pack_treelet_tables(bvh_nodes, tris=tri_dict, max_rows=tre_rows))
-        if brute_tables:
-            mxu_c, mxu_n = pack_tris_mxu(tri_dict)
-        else:
-            mxu_c = jnp.zeros((0, MXU_NFEAT), F32)
-            mxu_n = jnp.zeros((0, MXU_NFEAT), F32)
-        comps = []
-        for name in ("v0", "v1", "v2", "n0", "n1", "n2"):
-            arr = np.asarray(bvh_tris[name], dtype=np.float32)
-            comps.extend([jnp.asarray(arr[:, 0]), jnp.asarray(arr[:, 1]),
-                          jnp.asarray(arr[:, 2])])
-        tris = TriangleArrays(
-            *comps, material_id=jnp.asarray(bvh_tris["material_id"], dtype=I32))
-
-    if wide_data is not None:
-        wide_nodes, tris8_dict, wide_root_idx = wide_data
-        nodes8_f, nodes8_i, tris8 = pack_wide_tables(wide_nodes, tris8_dict)
-        wide_root = jnp.asarray([wide_root_idx], I32)
-    else:
-        # degenerate forest: one node, all children kind=0 => instant miss
-        # (box content never read; zeros, NOT NaN — multihost device_put
-        # asserts replicated values equal across processes and NaN != NaN)
-        nodes8_f = jnp.zeros((8, 128), F32)
-        nodes8_i = jnp.zeros((8, 128), I32)
-        tris8 = jnp.zeros((8, 128), F32)
-        wide_root = jnp.zeros((1,), I32)
+        bvh_nodes = {
+            "bounds_min": np.full((1, 3), inf, np.float32),
+            "bounds_max": np.full((1, 3), -inf, np.float32),
+            "tri_first": np.full((1,), -1, np.int32),
+            "tri_count": np.zeros((1,), np.int32),
+            "second_child": np.zeros((1,), np.int32),
+            "parent": np.full((1,), -1, np.int32),
+            "sibling": np.full((1,), -1, np.int32),
+        }
+        z = np.zeros((1, 3), np.float32)
+        bvh_tris = {"v0": z, "v1": z, "v2": z, "n0": z, "n1": z, "n2": z,
+                    "material_id": np.zeros((1,), np.int32)}
+    bmin = np.asarray(bvh_nodes["bounds_min"], dtype=np.float32)
+    bmax = np.asarray(bvh_nodes["bounds_max"], dtype=np.float32)
+    bvh = BVHArrays(
+        min_x=jnp.asarray(bmin[:, 0]), min_y=jnp.asarray(bmin[:, 1]),
+        min_z=jnp.asarray(bmin[:, 2]), max_x=jnp.asarray(bmax[:, 0]),
+        max_y=jnp.asarray(bmax[:, 1]), max_z=jnp.asarray(bmax[:, 2]),
+        tri_first=jnp.asarray(bvh_nodes["tri_first"], dtype=I32),
+        tri_count=jnp.asarray(bvh_nodes["tri_count"], dtype=I32),
+        second_child=jnp.asarray(bvh_nodes["second_child"], dtype=I32),
+        parent=jnp.asarray(bvh_nodes["parent"], dtype=I32),
+        sibling=jnp.asarray(bvh_nodes["sibling"], dtype=I32),
+    )
+    comps = []
+    for name in ("v0", "v1", "v2", "n0", "n1", "n2"):
+        arr = np.asarray(bvh_tris[name], dtype=np.float32)
+        comps.extend([jnp.asarray(arr[:, 0]), jnp.asarray(arr[:, 1]),
+                      jnp.asarray(arr[:, 2])])
+    tris = TriangleArrays(
+        *comps, material_id=jnp.asarray(bvh_tris["material_id"], dtype=I32))
+    from ..ops.bvh_walk import pack_walk_tables   # ops imports this module
+    walk_nodes, walk_tris = pack_walk_tables(bvh_nodes, bvh_tris)
 
     cam = CameraArrays(
         position=jnp.asarray(camera["position"], dtype=F32),
@@ -846,14 +344,5 @@ def make_scene_arrays(
     )
     return SceneArrays(geoms=geoms, materials=materials, bvh=bvh,
                        triangles=tris, camera=cam,
-                       bvh_packed_f=packed_f, bvh_packed_i=packed_i,
-                       tris_packed=packed_t,
-                       treelet_f=treelet_f, treelet_i=treelet_i,
-                       treelet_super=treelet_super,
-                       treelet_chunk=treelet_chunk,
-                       treelet_rows=jnp.zeros(
-                           (tre_rows or MAX_TRE_ROWS,), I32),
-                       tri_attrs=tri_attrs,
-                       tris_mxu_c=mxu_c, tris_mxu_n=mxu_n,
-                       nodes8_f=nodes8_f, nodes8_i=nodes8_i, tris8=tris8,
-                       wide_root=wide_root)
+                       walk_nodes=jnp.asarray(walk_nodes),
+                       walk_tris=jnp.asarray(walk_tris))

@@ -27,8 +27,8 @@ FORMAT_VERSION = 1
 def _fingerprint(settings: RenderSettings) -> str:
     """Settings that affect the accumulated estimate (not perf knobs)."""
     # rr_start changes the estimator (Russian roulette on/off mid-render
-    # would mix two estimators); bvh_impl covers the pallas-vs-jnp pruning-
-    # quirk difference (ops/intersect.py mesh_intersect docstring).
+    # would mix two estimators); bvh_impl keeps a resumed render on the same
+    # mesh traversal (float contraction differs between kernel and XLA).
     keep = ("width", "height", "trace_depth", "jitter", "dof", "fast_rng",
             "depth_quirk", "geom_types", "any_glossy", "any_refractive",
             "rr_start", "bvh_impl")

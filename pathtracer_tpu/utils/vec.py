@@ -1,10 +1,10 @@
-"""Component-wise 3-vector SoA — the core TPU data layout.
+"""Component-wise 3-vector SoA — the core data layout.
 
-Every per-ray quantity is a `Vec3` of three [N] arrays. On TPU this keeps all
-vector math as fused VPU elementwise ops: no (N,3)x(3,3) mini-matmuls (which
-XLA pads onto the 128x128 MXU at ~2% utilization), no cross-lane gathers for
-component selection, no minor-dim-3 layouts. Matrix transforms are applied
-with the 16 matrix entries as broadcast scalars.
+Every per-ray quantity is a `Vec3` of three [N] arrays. This keeps all
+vector math as fused elementwise ops over contiguous arrays: no (N,3)x(3,3)
+mini-matmuls, no gathers for component selection, no minor-dim-3 layouts.
+Matrix transforms are applied with the 16 matrix entries as broadcast
+scalars.
 
 Vec3 is a NamedTuple, hence a pytree: it nests freely in lax.scan carries,
 jit arguments, and grad.
@@ -139,7 +139,7 @@ def mat4_apply(m: jnp.ndarray, v: Vec3, w: float) -> Vec3:
     """(m @ [v, w]).xyz with matrix entries as broadcast scalars.
 
     `m` is a [4,4] array; each m[i,j] is a scalar at trace time, so the whole
-    transform is 9 multiplies + adds on the VPU — never a matmul.
+    transform is 9 multiplies + adds per lane — never a matmul.
     """
     return Vec3(
         m[0, 0] * v.x + m[0, 1] * v.y + m[0, 2] * v.z + w * m[0, 3],

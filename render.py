@@ -29,11 +29,9 @@ def main():
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="checkpoint file: resumes from it if present, and "
                          "saves to it after rendering")
-    ap.add_argument("--bvh", choices=("binned", "wide", "wide_nosort",
-                                      "pallas", "sorted", "jnp", "brute"),
-                    default=None,
+    ap.add_argument("--bvh", choices=("triton", "jnp"), default=None,
                     help="mesh intersector override (default: the loader's "
-                         "production pick — see scene/loader.py)")
+                         "pick for the platform; scene/loader.py)")
     ap.add_argument("--engine", choices=("wavefront", "persistent"),
                     default="wavefront",
                     help="wavefront: masked fixed-pool bounce loop (fastest "
@@ -47,6 +45,9 @@ def main():
 
     from pathtracer_tpu import load_scene, render
     from pathtracer_tpu.io.image import reference_style_name, save_hdr, save_png
+    from pathtracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     overrides = {}
     if args.res is not None:
@@ -58,9 +59,7 @@ def main():
     if args.depth is not None:
         overrides["DEPTH"] = args.depth
 
-    scene, settings = load_scene(
-        args.scene, overrides=overrides or None,
-        wide_tables=(args.bvh in ("wide", "wide_nosort")))
+    scene, settings = load_scene(args.scene, overrides=overrides or None)
     if args.no_jitter or args.no_dof:
         settings = dataclasses.replace(
             settings, jitter=not args.no_jitter, dof=not args.no_dof)

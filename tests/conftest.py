@@ -1,6 +1,12 @@
-"""Test configuration: all tests run on CPU with 8 virtual devices so the
-multi-chip sharding path is exercised without TPU hardware
-(XLA_FLAGS=--xla_force_host_platform_device_count, SURVEY.md §4)."""
+"""Test configuration: tests run on CPU with 8 virtual devices so the
+multi-device sharding path is exercised without GPUs
+(XLA_FLAGS=--xla_force_host_platform_device_count, SURVEY.md §4).
+
+Tests marked `gpu` need the card; they take the `gpu` fixture, which skips
+them elsewhere. On a machine with a GPU, select the CUDA backend and run
+only them:
+    JAX_PLATFORMS=cuda python -m pytest tests/ -m gpu
+"""
 import os
 
 # Must be set before jax initializes a backend.
@@ -11,10 +17,8 @@ if "xla_force_host_platform_device_count" not in flags:
 
 import jax  # noqa: E402
 
-# PT_TPU_TESTS=1 keeps the real backend so the TPU-gated tests
-# (tests/test_parity_full.py) can run on hardware:
-#   PT_TPU_TESTS=1 python -m pytest tests/test_parity_full.py -m ""
-if not os.environ.get("PT_TPU_TESTS"):
+# the CPU backend unless the environment names one (the `gpu` tests above)
+if not os.environ.get("JAX_PLATFORMS"):
     jax.config.update("jax_platforms", "cpu")
 
 import pytest  # noqa: E402
@@ -23,6 +27,16 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU (run with JAX_PLATFORMS=cuda -m gpu)")
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default backend is a GPU (decided at run time)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: JAX_PLATFORMS=cuda python -m pytest "
+                    "tests/ -m gpu")
 
 
 @pytest.fixture(scope="session")

@@ -2,7 +2,7 @@
 
 The reference repository ships img/reference/REFERENCE_cornell.5000samp.png
 (800x800, 5000 spp; copied to scenes/golden/). The FULL-SCALE comparison is
-a committed artifact: PARITY.md, produced by tools/golden_parity.py on TPU
+a committed artifact: PARITY.md, produced by tools/golden_parity.py
 at 800x800/2000 spp — 8x8-block MAD 0.0018 (max 0.17 on the noisy
 light-edge blocks), 16x16-block MAD 0.0011, correlation 0.986, per-channel
 mean deltas 0.0003. With depth_quirk=True we reproduce the CURRENT
@@ -14,7 +14,7 @@ block means with tolerances derived from the measured per-seed envelope
 (96 spp at 64x64: brightness delta 0.0033-0.0043, block MAD 0.0092-0.0108,
 corr 0.986-0.990 over seeds 0-2) — tight enough that a few-percent dimming
 or material regression fails every seed. The full-scale artifact itself is
-re-verified by the TPU-gated test in test_parity_full.py.
+re-verified on the GPU by test_parity_full.py and chip_smoke.py.
 """
 import os
 

@@ -246,13 +246,13 @@ def test_ior_gradient_finite_and_nonzero():
     np.testing.assert_allclose(g[~refr], 0.0, atol=1e-8)
 
 
-@pytest.mark.parametrize("impl", ["jnp", "binned"])
+@pytest.mark.parametrize("impl", ["jnp", "triton"])
 def test_mesh_albedo_grad_matches_finite_difference(impl):
     """Mesh-scene differentiability (BASELINE config 5): the albedo gradient
     flows through the bounce loop on a BVH scene, for both the fully
-    differentiable jnp walk and the production binned Pallas pipeline.
+    differentiable jnp walk and the GPU kernel (interpret mode here).
 
-    The binned path returns its hit geometry under stop_gradient
+    The kernel returns its hit geometry under stop_gradient
     (ops/intersect.py): exact for material parameters, since (t, normal,
     material id) do not depend on albedo — FD agreement proves it."""
     from pathtracer_tpu import load_scene
@@ -260,7 +260,8 @@ def test_mesh_albedo_grad_matches_finite_difference(impl):
 
     scene, settings = load_scene(scene_path("teapot"), overrides={
         "RES": [24, 24], "DEPTH": 3, "ITERATIONS": 1})
-    settings = dataclasses.replace(settings, bvh_impl=impl)
+    settings = dataclasses.replace(settings, bvh_impl=impl,
+                                   interpret=impl == "triton")
     loss, p0 = _loss_fn(scene, settings, "albedo")
 
     g = np.asarray(jax.grad(loss)(p0))
@@ -282,9 +283,9 @@ def test_mesh_albedo_grad_matches_finite_difference(impl):
             f"albedo[{i}] ({impl}): autodiff {flat[i]} vs FD {fd}")
 
 
-def test_mesh_albedo_grad_binned_matches_jnp():
-    """The binned pipeline's albedo gradient equals the jnp walk's: the two
-    intersectors return identical hit geometry (tests/test_binned.py), and
+def test_mesh_albedo_grad_kernel_matches_jnp():
+    """The kernel's albedo gradient equals the jnp walk's: the two
+    intersectors return identical hit geometry (tests/test_bvh_walk.py), and
     material gradients depend on geometry only through the primal values."""
     from pathtracer_tpu import load_scene
     from pathtracer_tpu.scene.fixtures import scene_path
@@ -292,9 +293,10 @@ def test_mesh_albedo_grad_binned_matches_jnp():
     scene, settings = load_scene(scene_path("teapot"), overrides={
         "RES": [24, 24], "DEPTH": 3, "ITERATIONS": 1})
     grads = {}
-    for impl in ("jnp", "binned"):
-        s = dataclasses.replace(settings, bvh_impl=impl)
+    for impl in ("jnp", "triton"):
+        s = dataclasses.replace(settings, bvh_impl=impl,
+                                interpret=impl == "triton")
         loss, p0 = _loss_fn(scene, s, "albedo")
         grads[impl] = np.asarray(jax.grad(loss)(p0))
-    np.testing.assert_allclose(grads["binned"], grads["jnp"],
+    np.testing.assert_allclose(grads["triton"], grads["jnp"],
                                rtol=1e-5, atol=1e-7)

@@ -164,7 +164,7 @@ def test_triangle_moller_trumbore():
     assert float(t2[0]) == -1.0
 
 
-def _random_mesh_scene(n_tris=64):
+def _random_mesh_scene(n_tris=64, max_leaf=4):
     """Random triangle soup + BVH, wrapped in SceneArrays."""
     v = RNG.normal(0, 1.5, (n_tris, 3, 3)).astype(np.float32)
     v[:, :, 2] -= 3.0
@@ -175,9 +175,7 @@ def _random_mesh_scene(n_tris=64):
         "n2": np.tile([0, 0, 1], (n_tris, 1)).astype(np.float32),
         "material_id": np.arange(n_tris, dtype=np.int32) % 5,
     }
-    nodes, reordered = build_bvh(tris, max_leaf=4)
-    from pathtracer_tpu.scene.bvh import align_leaves
-    nodes, reordered = align_leaves(nodes, reordered)
+    nodes, reordered = build_bvh(tris, max_leaf=max_leaf)
     geoms = [{"type": 2, "material_id": 0,
               "transform": np.eye(4), "inverse_transform": np.eye(4),
               "inv_transpose": np.eye(4), "root_node": 0}]
@@ -185,8 +183,7 @@ def _random_mesh_scene(n_tris=64):
     cam = {"position": (0, 0, 5), "view": (0, 0, -1), "up": (0, 1, 0),
            "right": (1, 0, 0), "pixel_length": (0.01, 0.01),
            "lens_radius": 0.0, "focal_distance": 10.0}
-    scene = make_scene_arrays(geoms, mats, nodes, reordered, cam,
-                              brute_tables=True)
+    scene = make_scene_arrays(geoms, mats, nodes, reordered, cam)
     return scene, v
 
 
@@ -309,6 +306,29 @@ def test_mesh_bvh_matches_reference_traversal():
     np.testing.assert_allclose(got[both], expect[both], rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("max_leaf", [1, 2, 4, 8])
+def test_mesh_bvh_oracle_leaf_sizes(max_leaf):
+    """The jnp walk against the float64 oracle of the reference traversal
+    at every leaf size the loader may choose (scene/loader.py MAX_LEAF)."""
+    scene, v = _random_mesh_scene(96, max_leaf=max_leaf)
+    assert int(np.asarray(scene.bvh.tri_count).max()) <= max_leaf
+    # rays toward scattered triangle centroids: most hit, some graze
+    o, _ = rays(200, spread=2.0, origin_z=4.0)
+    target = v.mean(axis=1)[RNG.integers(0, v.shape[0], 200)]
+    target = target + RNG.normal(0, 0.1, target.shape).astype(np.float32)
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t, _, _ = mesh_intersect(scene, jnp.int32(0), as_vec3(o), as_vec3(d))
+    got = np.asarray(t)
+    expect = oracle_mesh_bvh(scene, o.astype(np.float64),
+                             d.astype(np.float64))
+    assert (expect > 0).mean() > 0.5
+    agree = (got > 0) == (expect > 0)
+    assert agree.mean() > 0.995
+    both = (got > 0) & (expect > 0)
+    np.testing.assert_allclose(got[both], expect[both], rtol=1e-3, atol=1e-3)
+
+
 def test_mesh_bvh_close_to_true_closest():
     """And it should almost always equal the TRUE closest hit: the pruning
     quirk may only affect a tiny fraction of rays, and never produce a hit
@@ -338,39 +358,3 @@ def test_intersect_scene_picks_closest(cornell_small):
     # Ray 1 misses the sphere, hits the back wall (z=-5 + half-thickness)
     assert abs(float(t[1]) - 15.495) < 0.02
     assert int(mat[1]) == 1  # diffuse_white
-
-
-@pytest.mark.slow
-def test_brute_matches_packet():
-    """MXU brute-force intersector vs the packet walk: identical hits,
-    distances, materials, normals (both true-closest-hit)."""
-    from pathtracer_tpu.ops.bvh_pallas import (mesh_intersect_brute,
-                                               mesh_intersect_packet)
-
-    scene, v = _random_mesh_scene(64)
-    o, d = rays(300, spread=2.0, origin_z=4.0)
-    t_p, n_p, m_p = mesh_intersect_packet(scene, jnp.int32(0), as_vec3(o),
-                                          as_vec3(d), interpret=True)
-    t_b, n_b, m_b = mesh_intersect_brute(scene, as_vec3(o), as_vec3(d),
-                                         interpret=True)
-    tp, tb = np.asarray(t_p), np.asarray(t_b)
-    np.testing.assert_array_equal(tp > 0, tb > 0)
-    both = tp > 0
-    np.testing.assert_allclose(tp[both], tb[both], rtol=1e-4, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(m_p)[both],
-                                  np.asarray(m_b)[both])
-
-
-@pytest.mark.slow
-def test_intersect_scene_brute_impl():
-    """bvh_impl='brute' (the reference's no-BVH ablation) through the scene
-    dispatch: matches the packet path."""
-    scene, v = _random_mesh_scene(64)
-    o, d = rays(200, spread=2.0, origin_z=4.0)
-    t_p, _, m_p = intersect_scene(scene, (2,), as_vec3(o), as_vec3(d),
-                                  bvh_impl="pallas")
-    t_b, _, m_b = intersect_scene(scene, (2,), as_vec3(o), as_vec3(d),
-                                  bvh_impl="brute")
-    np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_b),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(m_p), np.asarray(m_b))

@@ -2,8 +2,7 @@
 
 Mirrors the reference's stream_compaction test intent (the library the README
 commits to swapping in, SURVEY.md §2.5); here it gets the real unit tests the
-reference lacks. Pallas kernels run in interpret mode on CPU (conftest pins
-the CPU backend) and compiled on TPU — same assertions either way.
+reference lacks.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,32 +13,29 @@ from pathtracer_tpu.ops.scan import (compact, compaction_indices,
 
 
 @pytest.mark.parametrize("n", [1, 7, 128, 4096, 4097, 40000])
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_exclusive_scan_int(n, use_pallas):
+def test_exclusive_scan_int(n):
     rng = np.random.default_rng(n)
     x = rng.integers(0, 5, size=n).astype(np.int32)
-    got = np.asarray(exclusive_scan(jnp.asarray(x), use_pallas=use_pallas))
+    got = np.asarray(exclusive_scan(jnp.asarray(x)))
     want = np.cumsum(x) - x
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_exclusive_scan_float(use_pallas):
+def test_exclusive_scan_float():
     rng = np.random.default_rng(0)
     x = rng.standard_normal(20000).astype(np.float32)
-    got = np.asarray(exclusive_scan(jnp.asarray(x), use_pallas=use_pallas))
+    got = np.asarray(exclusive_scan(jnp.asarray(x)))
     want = (np.cumsum(x) - x).astype(np.float32)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("n", [16, 4096, 10000])
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_compact_stable_partition(n, use_pallas):
+def test_compact_stable_partition(n):
     rng = np.random.default_rng(n * 7 + 1)
     mask = rng.random(n) < 0.3
     vals = np.arange(n, dtype=np.int32) * 10
     tree = {"v": jnp.asarray(vals), "w": jnp.asarray(vals.astype(np.float32))}
-    packed, count = compact(tree, jnp.asarray(mask), use_pallas=use_pallas)
+    packed, count = compact(tree, jnp.asarray(mask))
     count = int(count)
     assert count == mask.sum()
     # live elements packed to the front, stable order
@@ -54,10 +50,10 @@ def test_compact_stable_partition(n, use_pallas):
 
 def test_compact_all_and_none():
     vals = jnp.arange(100, dtype=jnp.int32)
-    packed, count = compact({"v": vals}, jnp.ones(100, bool), use_pallas=False)
+    packed, count = compact({"v": vals}, jnp.ones(100, bool))
     assert int(count) == 100
     np.testing.assert_array_equal(np.asarray(packed["v"]), np.arange(100))
-    packed, count = compact({"v": vals}, jnp.zeros(100, bool), use_pallas=False)
+    packed, count = compact({"v": vals}, jnp.zeros(100, bool))
     assert int(count) == 0
     np.testing.assert_array_equal(np.asarray(packed["v"]), np.arange(100))
 
@@ -65,18 +61,17 @@ def test_compact_all_and_none():
 def test_compaction_indices_is_permutation():
     rng = np.random.default_rng(3)
     mask = jnp.asarray(rng.random(5000) < 0.5)
-    idx, _ = compaction_indices(mask, use_pallas=True)
+    idx, _ = compaction_indices(mask)
     assert sorted(np.asarray(idx).tolist()) == list(range(5000))
 
 
 @pytest.mark.parametrize("n", [8, 1000, 12345])
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_radix_sort_stable(n, use_pallas):
+def test_radix_sort_stable(n):
     rng = np.random.default_rng(n)
     keys = rng.integers(0, 17, size=n).astype(np.int32)
     payload = np.arange(n, dtype=np.int32)
     skeys, stree = sort_by_key(jnp.asarray(keys), {"p": jnp.asarray(payload)},
-                               n_bits=5, use_pallas=use_pallas)
+                               n_bits=5)
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(skeys), keys[order])
     np.testing.assert_array_equal(np.asarray(stree["p"]), payload[order])
@@ -111,7 +106,7 @@ def test_sort_by_key_multisort_matches_radix():
     keys = rng.integers(0, 9, size=3000).astype(np.int32)
     payload = np.arange(3000, dtype=np.int32)
     k1, t1 = sort_by_key(jnp.asarray(keys), {"p": jnp.asarray(payload)},
-                         n_bits=4, use_pallas=False)
+                         n_bits=4)
     k2, t2 = sort_by_key_multisort(jnp.asarray(keys),
                                    {"p": jnp.asarray(payload)})
     np.testing.assert_array_equal(np.asarray(k1), np.asarray(k2))

@@ -138,16 +138,19 @@ def test_albedo_fit_converges(cornell_small, mesh):
 @pytest.mark.slow
 def test_albedo_fit_converges_mesh_scene(mesh):
     """BASELINE config 5 regression guard: the differentiable albedo fit on
-    a MESH scene — gradients through the full bounce loop with the
-    production binned Pallas intersector in the forward pass (hit geometry
-    under stop_gradient, exact for material parameters) — must converge,
-    not just run. Committed full-scale curve: FIT_alien.md."""
+    a MESH scene — gradients through the full bounce loop with the GPU
+    kernel (interpret mode here) in the forward pass (hit geometry under
+    stop_gradient, exact for material parameters) — must converge, not
+    just run. Committed full-scale curve: FIT_alien.md."""
+    import dataclasses
+
     from pathtracer_tpu import load_scene
     from pathtracer_tpu.scene.fixtures import scene_path
 
     scene, settings = load_scene(scene_path("teapot"),
                                  overrides={"RES": [32, 32], "DEPTH": 2})
-    assert settings.bvh_impl == "binned"
+    settings = dataclasses.replace(settings, bvh_impl="triton",
+                                   interpret=True)
     scene_r = replicate(scene, mesh)
     accum = shard_accum(zero_accum(settings), mesh)
     target = render_chunk_sharded(scene_r, settings, mesh, accum,
@@ -219,13 +222,12 @@ def test_shard_work_balance_interleaved(mesh):
 
 
 @pytest.mark.slow
-def test_binned_intersect_sharded_bitexact(mesh):
-    """The production binned Pallas intersector — packed VMEM treelet tables,
-    trace-time scene-adaptive constants — under shard_map must return
-    bit-identical hits to the single-device call (scene/BVH replicated,
-    per-shard pools bin/sort independently, per-lane closest hits are exact
-    regardless of pool composition). Closes the multi-chip mesh coverage
-    hole: every other sharded test renders analytic scenes only."""
+def test_kernel_intersect_sharded_bitexact(mesh):
+    """The GPU mesh kernel (interpret mode here) under shard_map must return
+    bit-identical hits to the single-device call (scene/BVH replicated, each
+    shard pads and walks its own pool; per-lane closest hits do not depend
+    on pool composition). Every other sharded test renders analytic scenes
+    only."""
     from jax.sharding import PartitionSpec as P
 
     from pathtracer_tpu import load_scene
@@ -237,7 +239,6 @@ def test_binned_intersect_sharded_bitexact(mesh):
 
     scene, settings = load_scene(scene_path("teapot"),
                                  overrides={"RES": [64, 64], "DEPTH": 2})
-    assert settings.bvh_impl == "binned"
     irng = rng_mod.IterationRng(True, 0, jnp.int32(1),
                                 pixel_map=settings.pixel_map())
     state = generate_paths(scene, settings, irng)
@@ -245,7 +246,7 @@ def test_binned_intersect_sharded_bitexact(mesh):
 
     def run(scene, o, d):
         return intersect_scene(scene, settings.geom_types, o, d,
-                               bvh_impl="binned")
+                               bvh_impl="triton", interpret=True)
 
     t1, n1, m1 = jax.jit(run)(scene, o, d)
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Full benchmark suite — reproduces the reference's README measurement
-matrix (BASELINE.md) on TPU and writes BENCH.md + BENCH.json.
+matrix (BASELINE.md) on one GPU and writes BENCH.md + BENCH.json, headed by
+the card's name and power limit.
 
 Covers: Cornell defaults + feature ablations (AA, DoF, material sort,
 threefry RNG, depth quirk), open scene, both engines, and the mesh scenes
@@ -77,36 +78,6 @@ def bench_persistent(scene, settings, chunk=30, reps=3, seed=0):
     return best * 1e3
 
 
-NOTES_MD = """
-## Notes (round 4)
-
-- "cornell + material sort" (COALESCED): segmented column sorts + ONE
-  deferred pixel unsort after the bounce loop. 37.6 ms BEATS the
-  reference's own 42.95 ms at the identical config — the one feature flag
-  where the reference was still ahead, closed in round 3-4 (round-1
-  element-serial scatter-add was 179.6; round-2 per-bounce unsort 72.0).
-- Mesh rows use the production binned-treelet intersector (ops/binned.py;
-  scene-adaptive defaults: 96-tri treelets + 2 passes small meshes,
-  288-tri + 3 passes + pre-fallback compaction big meshes). The "wide"
-  rows are the measured-dead-end 8-wide per-packet-stack kernel
-  (ops/wide.py), kept as the ablation record.
-- "alien d4 persistent engine": the respawning work-queue engine now BEATS
-  the masked engine on the big mesh (222 vs 247 ms) — respawned lanes keep
-  pools dense, which feeds the binned intersector better-populated passes.
-- Remaining gap vs the reference's RTX 3060: mesh traversal throughput
-  (teapot 5.1x, alien 11.2x slower). Round-4 within-run stage split on the
-  alien bounce pool (sorts 11 / cull 15 / stream 44 / fallback 18 ms) and
-  the id/support structure behind it are in ops/binned.py +
-  tools/diag_bins.py; round-4 measured dead ends: chunk gating, minority-
-  want deferral, slot pipeline (flag notes carry the numbers).
-- Sort primitives (tools/bench_sorts.py): multi-operand segmented column
-  sorts measure ~1.8 ms per 15-operand 640k-lane pass in-engine (the
-  earlier "HBM floor" microbench numbers predate the transport-lie guard).
-- Full-scale golden parity: PARITY.md (cornell, corr 0.986),
-  PARITY_alien.md (hero, corr 0.9993).
-"""
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -115,13 +86,17 @@ def main():
     args = ap.parse_args()
 
     from pathtracer_tpu import load_scene
+    from pathtracer_tpu.utils.compile_cache import enable_compile_cache
+    from pathtracer_tpu.utils.device import gpu_identity, require_gpu
 
+    require_gpu()
+    enable_compile_cache()
+    card = gpu_identity()
+    print(card)
     rows = []
 
     def run(name, path, fn=bench_wavefront, overrides=None, chunk=30, **kw):
-        scene, settings = load_scene(
-            path, overrides=overrides,
-            wide_tables=(kw.get("bvh_impl") in ("wide", "wide_nosort")))
+        scene, settings = load_scene(path, overrides=overrides)
         if kw:
             settings = dataclasses.replace(settings, **kw)
         ms = fn(scene, settings, chunk=chunk)
@@ -155,21 +130,14 @@ def main():
         run("alien d4", scene_path("animal"), chunk=3)
         run("alien d4 persistent engine", scene_path("animal"),
             fn=bench_persistent, chunk=32)
-        # mesh-intersector ablation rows (production pick is the loader's)
-        run("teapot d4 wide", scene_path("teapot"), chunk=3,
-            bvh_impl="wide")
-        run("alien d4 wide", scene_path("animal"), chunk=3,
-            bvh_impl="wide")
-        run("teapot d4 binned", scene_path("teapot"), chunk=3,
-            bvh_impl="binned")
-        run("alien d4 binned", scene_path("animal"), chunk=3,
-            bvh_impl="binned")
+        # the plain-XLA mesh walk, for comparison with the GPU kernel
+        run("teapot d4 XLA walk", scene_path("teapot"), chunk=3,
+            bvh_impl="jnp")
 
     with open(args.out.replace(".md", ".json"), "w") as f:
         json.dump(rows, f, indent=1)
-    notes = NOTES_MD
     with open(args.out, "w") as f:
-        f.write("# BENCH — measured on TPU (single chip)\n\n")
+        f.write(f"# BENCH — measured on one GPU: {card}\n\n")
         f.write("Reference baselines: RTX 3060 Laptop (BASELINE.md). "
                 "ms/frame = one full progressive iteration at the scene's "
                 "configured resolution and depth.\n\n")
@@ -182,7 +150,6 @@ def main():
                 "speedup_vs_reference"] else "—"
             f.write(f"| {r['config']} | {r['ms_per_frame']} | "
                     f"{r['primary_mrays_per_s']} | {ref} | {spd} |\n")
-        f.write(notes)
     print(f"wrote {args.out} and {args.out.replace('.md', '.json')}")
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Full-scale golden parity: render a scene at high spp on TPU and compare
+"""Full-scale golden parity: render a scene at high spp on a GPU and compare
 quantitatively against the reference tracer's committed render of the SAME
 scene. Writes PARITY.md + the render PNG so the parity claim is a
 checked-in, reproducible artifact (north-star config: image allclose at
@@ -40,9 +40,9 @@ def compute_parity(spp: int, chunk: int = 100,
                    overrides: dict | None = None) -> dict:
     """Render `scene_name` at full scale and compare against the committed
     reference render (`ref_png`, default the Cornell golden). Returns the
-    metric dict (also used by the TPU-gated regression test
-    tests/test_parity_full.py, so the committed PARITY.md envelope can't
-    silently rot)."""
+    metric dict (also used by the GPU regression test
+    tests/test_parity_full.py and chip_smoke.py, so the committed PARITY.md
+    envelope can't silently rot)."""
     import numpy as np
 
     from pathtracer_tpu import load_scene, render
@@ -97,6 +97,12 @@ def main():
 
     import numpy as np
 
+    from pathtracer_tpu.utils.compile_cache import enable_compile_cache
+    from pathtracer_tpu.utils.device import gpu_identity, require_gpu
+
+    require_gpu()
+    enable_compile_cache()
+    card = gpu_identity()
     overrides = {}
     if args.res:
         overrides["RES"] = [args.res, args.res]
@@ -115,7 +121,7 @@ def main():
         "# PARITY — full-scale golden-image comparison",
         "",
         f"Our render: {cfg}, **{args.spp} spp** on one "
-        f"TPU chip ({dt:.1f}s wall including one-time compilation), "
+        f"GPU, {card} ({dt:.1f}s wall including one-time compilation), "
         f"committed as `{args.png}`.",
         f"Reference: the CUDA tracer's committed 5000-spp render "
         f"(`{args.ref or 'scenes/golden/REFERENCE_cornell.5000samp.png'}`, "
@@ -142,7 +148,7 @@ def main():
         "",
         f"Generated by tools/golden_parity.py --scene {args.scene} "
         f"--spp {args.spp} on "
-        f"{time.strftime('%Y-%m-%d')} (single TPU chip).",
+        f"{time.strftime('%Y-%m-%d')} (one GPU: {card}).",
     ]
     with open(args.out, "w") as f:
         f.write("\n".join(lines) + "\n")

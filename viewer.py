@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import io
 import os
 import select
 import sys
@@ -42,10 +41,8 @@ import time
 # ---------------------------------------------------------------------------
 
 def _png_bytes(img8):
-    from PIL import Image
-    buf = io.BytesIO()
-    Image.fromarray(img8).save(buf, format="PNG")
-    return buf.getvalue()
+    from pathtracer_tpu.io.image import encode_png
+    return encode_png(img8)
 
 
 def detect_display() -> str:
@@ -165,7 +162,7 @@ def main():
     ap.add_argument("--max-steps", type=int, default=0,
                     help="exit after N refine steps (smoke testing)")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (testing without a TPU)")
+                    help="force the CPU backend (testing without a GPU)")
     args = ap.parse_args()
 
     import numpy as np
@@ -175,12 +172,14 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     from pathtracer_tpu import load_scene
+    from pathtracer_tpu.utils.compile_cache import enable_compile_cache
     from pathtracer_tpu.engine.wavefront import (lanes_to_image, render_chunk,
                                                  zero_accum)
     from pathtracer_tpu.io.image import (reference_style_name, save_png,
                                          to_uint8)
     from pathtracer_tpu.scene.loader import derive_camera, orbit_camera
 
+    enable_compile_cache()
     overrides = {"RES": [args.res, args.res]}
     if args.depth:
         overrides["DEPTH"] = args.depth
